@@ -46,7 +46,7 @@ def photo_image(h, w, nc=3):
     """Photographic-statistics content: 1/f amplitude spectrum with random
     phase (the classic natural-image power law), a soft tone curve and
     correlated chroma — entropy-coder work factor matches real photographs
-    far better than the sine+checker synthetic (VERDICT r2 weak #7)."""
+    far better than the sine+checker synthetic."""
     r = np.random.default_rng(11)
     fy = np.fft.fftfreq(h)[:, None]
     fx = np.fft.rfftfreq(w)[None, :]

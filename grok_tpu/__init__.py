@@ -1,10 +1,10 @@
-"""grok_tpu — a TPU-native JPEG 2000 / HTJ2K engine (JAX/XLA/Pallas).
+"""grok_tpu — a JPEG 2000 / HTJ2K engine in JAX/XLA.
 
 Brand-new implementation with the capabilities of the Grok codec
 (reference: /root/reference, Grok 9.2.0): Part-1 EBCOT/MQ and HTJ2K block
 coding, 5/3 + 9/7 lifting DWT, full Tier-2, profiles, windowed decode and
-random access — re-architected for TPU: batched lane-parallel entropy
-coding, array-level lifting kernels, mesh-sharded tiles.
+random access — re-architected for accelerators: batched lane-parallel
+entropy coding, array-level lifting kernels, mesh-sharded tiles.
 
 Public API (capability parity with grok.h's ~50 GRK_API functions, in
 idiomatic Python):
@@ -14,8 +14,10 @@ idiomatic Python):
     image = gk.decompress(stream, gk.DecompressParams(...))
 """
 
+from .core.compile_cache import configure as _configure_compile_cache
 from .core.cpu import tune_malloc as _tune_malloc
 
+_configure_compile_cache()  # before any device program is compiled
 _tune_malloc()  # arena reuse for per-frame plane allocations (see cpu.py)
 
 from .core.image import Component, Image

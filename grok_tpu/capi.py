@@ -19,37 +19,39 @@ import threading
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
-_SRC = os.path.join(_NATIVE_DIR, "capi.cpp")
-_HDR = os.path.join(_NATIVE_DIR, "grok_tpu_c.h")
-_OUT = os.path.join(_NATIVE_DIR, "libgrok_tpu_c.so")
+_NAME = "libgrok_tpu_c.so"
 
 
 def build() -> str | None:
-    """Compile libgrok_tpu_c.so if stale; returns its path (None: no g++)."""
-    src, hdr, out = map(os.path.abspath, (_SRC, _HDR, _OUT))
-    if os.path.exists(out) and os.path.getmtime(out) >= max(
-        os.path.getmtime(src), os.path.getmtime(hdr)
-    ):
-        return out
+    """Build libgrok_tpu_c.so unless a matching one exists (see
+    core/native_build.py); returns its path (None: no g++)."""
+    from .core import native_build
+
+    src = os.path.join(native_build.NATIVE_DIR, "capi.cpp")
+    hdr = os.path.join(native_build.NATIVE_DIR, "grok_tpu_c.h")
     inc = sysconfig.get_paths()["include"]
     libdir = sysconfig.get_config_var("LIBDIR") or "/usr/local/lib"
     pyver = f"python{sysconfig.get_config_var('py_version_short')}"
     cmd = [
         "g++", "-O2", "-fPIC", "-shared", "-std=c++17",
-        f"-I{inc}", src, "-o", out,
+        f"-I{inc}", src,
         f"-L{libdir}", f"-Wl,-rpath,{libdir}", f"-l{pyver}", "-ldl",
     ]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=240)
-    except (OSError, subprocess.TimeoutExpired):
-        return None
-    if r.returncode != 0:
-        from .core import logging as log
 
-        log.warn("C API build failed: %s", r.stderr[-800:])
-        return None
-    return out
+    def compile_to(out):
+        try:
+            r = subprocess.run(cmd + ["-o", out], capture_output=True,
+                               text=True, timeout=240)
+        except (OSError, subprocess.TimeoutExpired):
+            return False
+        if r.returncode != 0:
+            from .core import logging as log
+
+            log.warn("C API build failed: %s", r.stderr[-800:])
+            return False
+        return True
+
+    return native_build.build(_NAME, [src, hdr], cmd, compile_to)
 
 
 def get_lib() -> ctypes.CDLL | None:

@@ -20,7 +20,7 @@ from ..io.formats import load_image
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="grok-tpu-compress",
-        description="TPU-native JPEG 2000 / HTJ2K encoder",
+        description="JPEG 2000 / HTJ2K encoder",
     )
     p.add_argument("-i", "--in_file", help="input image (png/tif/bmp/pnm/pgx/raw)")
     p.add_argument("-o", "--out_file", help="output .j2k/.j2c/.jp2")

@@ -19,7 +19,7 @@ from ..io.formats import save_image
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="grok-tpu-decompress",
-        description="TPU-native JPEG 2000 / HTJ2K decoder",
+        description="JPEG 2000 / HTJ2K decoder",
     )
     p.add_argument("-i", "--in_file")
     p.add_argument("-o", "--out_file")

@@ -3,8 +3,8 @@
 Parity targets: the reference's marker writers in
 codestream/CodeStreamCompress.cpp:1058+ and the ~25 read_<marker> handlers in
 codestream/CodeStreamDecompress.cpp:1148-2707, plus codestream/markers/.
-Implemented from the standard's tables, host-side (serial byte work stays on
-host in the TPU design).
+Implemented from the standard's tables, host-side (serial byte work stays
+on the host; the accelerator takes the array stages).
 """
 
 from __future__ import annotations

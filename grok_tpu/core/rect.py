@@ -1,6 +1,6 @@
 """Rectangle / canvas-coordinate math for the JPEG 2000 reference grid.
 
-TPU-native reimplementation of the geometry helpers the reference keeps in
+Reimplementation of the geometry helpers the reference keeps in
 ``src/lib/jp2/util/util.h`` (grkRect<T>, grkPoint) — re-derived from the
 ITU-T T.800 Annex B canvas equations, not translated.
 

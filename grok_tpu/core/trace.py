@@ -1,10 +1,10 @@
 """Stage tracing + roofline accounting for the codec pipeline.
 
 The reference has no in-library tracer (profiling is external massif /
-wall-clock timing — SURVEY §5); for a TPU-native framework the hot-loop
-accounting is first-class: every pipeline stage records wall time and the
-bytes it must move, so a report can show achieved GB/s against the
-machine's measured memory bandwidth (host stages) or HBM (device stages).
+wall-clock timing — SURVEY §5); here the hot-loop accounting is
+first-class: every pipeline stage records wall time and the bytes it must
+move, so a report can show achieved GB/s against the host's measured copy
+bandwidth.
 
 Usage:
     GROK_TPU_TRACE=1            enable span collection (near-zero overhead

@@ -1,6 +1,6 @@
 """2-D multi-level lifting DWT (5/3 reversible, 9/7 irreversible).
 
-TPU-native formulation of the wavelet stage (parity targets:
+Array formulation of the wavelet stage (parity targets:
 transform/WaveletFwd.cpp:618 and transform/WaveletReverse.cpp:2232):
 
 * Each 1-D lifting step gathers only the +-1 opposite-phase neighbors, and

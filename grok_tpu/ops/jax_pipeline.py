@@ -3,25 +3,25 @@
 One jitted function per tile geometry runs DC shift -> MCT -> DWT ->
 quantization (encode) or dequantization -> inverse DWT -> inverse MCT ->
 final conversion (decode) entirely on the accelerator; only entropy-coded
-bytes cross the host boundary when combined with the jax T1 backend.
+bytes cross the host boundary when combined with a device T1 coder.
 
 Enabled with GROK_TPU_DEVICE=jax (tile_processor checks it); the band
 geometry is closed over at trace time so every slice is static and XLA
 fuses the whole chain. Parity: the numpy stages in tile_processor.py.
 
-Both chains are bit-exact vs the host path ON TPU: 5/3 by integer
-arithmetic everywhere; 9/7 because the TPU VPU rounds f32 mul-then-add
-exactly like the host's two-rounding sequence (no FMA contraction on the
-float elementwise path) — verified on the attached chip by
-tools/fma_hw_check.py (encode streams byte-identical, decode samples
-identical, incl. ICT and custom MCT). The CPU simulation backend may
-drift +-1 LSB on rare samples: LLVM contracts mul+add into FMAs during
-XLA:CPU codegen, and `lax.optimization_barrier` cannot prevent it (it is
-stripped from the compiled HLO before emission — measured, see
-tools/fma_hw_check.py docstring).
+The 5/3 chain is bit-exact against the host path on every backend
+(integer arithmetic). The 9/7, ICT and custom-MCT chain is bit-exact only
+where the device compiler rounds every float32 product and sum like the
+host does; a compiler that contracts mul+add into one fused multiply-add
+moves rare samples by one LSB. :func:`float_chain_exact` measures that
+property on the device at hand, and the mesh paths
+(parallel/distributed.py) key their lossy default on it.
 """
 
 from __future__ import annotations
+
+import functools
+import os
 
 import numpy as np
 
@@ -38,6 +38,15 @@ def _band_origin(geom, res_idx: int, orient: int):
     if orient == 2:
         return prev.height, 0
     return prev.height, prev.width
+
+
+def quantize(xp, vals, step):
+    """sign(v) * floor(|v| / step) as int32, the host quantizer's formula.
+    XLA rounds the float32 quotient like a multiply by the reciprocal
+    (XLA:CPU for a constant step, XLA:GPU always), so on the device a few
+    coefficients can land one step away from the host's."""
+    return (xp.sign(vals) * xp.floor(xp.abs(vals) / xp.float32(step))
+            ).astype(xp.int32)
 
 
 def make_forward_fn(geoms, tccps, siz_comps, mct: int,
@@ -68,15 +77,9 @@ def make_forward_fn(geoms, tccps, siz_comps, mct: int,
     def f(*comps):
         shifted = [comps[c] - dcs[c] for c in range(ncomp)]
         if mct == 2 and enc_m is not None:
-            # Part-2 array-based MCT (float path, parity:
-            # tile_processor custom_mct_forward) — a [N,N] matmul over
-            # the component axis, MXU-native
-            flat = jnp.stack(
-                [x.astype(jnp.float32) for x in shifted]
-            ).reshape(ncomp, -1)
-            mixed = jnp.asarray(enc_m) @ flat
-            shifted = [mixed[c].reshape(shifted[c].shape)
-                       for c in range(ncomp)]
+            # Part-2 array-based MCT (float path, the host's arithmetic)
+            shifted = mct_ops.custom_mct_forward(
+                jnp, [x.astype(jnp.float32) for x in shifted], enc_m)
         elif mct == 1 and ncomp >= 3:
             if irrev:
                 r, g, b = (x.astype(jnp.float32) for x in shifted[:3])
@@ -96,10 +99,8 @@ def make_forward_fn(geoms, tccps, siz_comps, mct: int,
                 q = jnp.zeros(packed.shape, dtype=jnp.int32)
                 for (oy, ox, bh, bw, step) in specs:
                     vals = jax.lax.dynamic_slice(packed, (oy, ox), (bh, bw))
-                    qb = (jnp.sign(vals)
-                          * jnp.floor(jnp.abs(vals) / jnp.float32(step))
-                          ).astype(jnp.int32)
-                    q = jax.lax.dynamic_update_slice(q, qb, (oy, ox))
+                    q = jax.lax.dynamic_update_slice(
+                        q, quantize(jnp, vals, step), (oy, ox))
                 if roi:
                     q = q << roi
                 outs.append(q)
@@ -111,11 +112,10 @@ def make_forward_fn(geoms, tccps, siz_comps, mct: int,
     return f
 
 
-def _pin_device(fn):
+def pin_device(fn):
     """Honor GROK_TPU_DEVICE_ID (CLI -G DeviceId parity): run the jitted
-    program on the selected device instead of jax's default."""
-    import os
-
+    program on the selected device instead of jax's default. Pass host
+    (numpy) arguments so they are copied straight to that device."""
     did = os.environ.get("GROK_TPU_DEVICE_ID", "")
     if not did:
         return fn
@@ -137,7 +137,7 @@ def build_forward(geoms, tccps, siz_comps, mct: int, mct_enc_matrix=None):
     """
     import jax
 
-    return _pin_device(jax.jit(make_forward_fn(
+    return pin_device(jax.jit(make_forward_fn(
         geoms, tccps, siz_comps, mct, mct_enc_matrix=mct_enc_matrix)))
 
 
@@ -190,11 +190,8 @@ def make_inverse_fn(geoms, tccps, siz_comps, mct: int, reduce: int = 0,
                 a = deq
             outs.append(dwt_ops.inverse(jnp, a, rects[c], nls[c], irrev))
         if mct == 2 and dec_m is not None:
-            flat = jnp.stack(
-                [o.astype(jnp.float32) for o in outs]
-            ).reshape(ncomp, -1)
-            mixed = jnp.asarray(dec_m) @ flat
-            outs = [mixed[c].reshape(outs[c].shape) for c in range(ncomp)]
+            outs = mct_ops.custom_mct_inverse(
+                jnp, [o.astype(jnp.float32) for o in outs], dec_m)
         elif mct == 1 and ncomp >= 3:
             if irrev:
                 r, g, b = mct_ops.ict_inverse(jnp, outs[0], outs[1], outs[2])
@@ -228,7 +225,7 @@ def build_inverse(geoms, tccps, siz_comps, mct: int, reduce: int = 0,
     """Returns jitted fn(*staging int32 packed) -> tuple of final int32."""
     import jax
 
-    return _pin_device(
+    return pin_device(
         jax.jit(make_inverse_fn(geoms, tccps, siz_comps, mct, reduce,
                                 mct_dec_matrix=mct_dec_matrix,
                                 mct_offsets=mct_offsets))
@@ -236,6 +233,40 @@ def build_inverse(geoms, tccps, siz_comps, mct: int, reduce: int = 0,
 
 
 def device_enabled() -> bool:
-    import os
-
     return os.environ.get("GROK_TPU_DEVICE", "") == "jax"
+
+
+@functools.cache
+def float_chain_exact() -> bool:
+    """Whether the default device rounds the 9/7 / ICT / custom-MCT float
+    chain, quantizer included, bit-for-bit like the host.
+
+    Runs the forward and inverse chain on a fixed 64x64x3 input once per
+    process, jitted on the device and in numpy, and compares every
+    sample. Fused multiply-adds or a reciprocal-rounded division change
+    the last bit of a large share of samples, so either shows here."""
+    import jax
+    import jax.numpy as jnp
+
+    from ..core.rect import Rect
+
+    n = 64
+    x = np.random.default_rng(0).integers(
+        -128, 128, size=(3, n, n)).astype(np.float32)
+    rect = Rect(0, 0, n, n)
+    mat = np.array([[0.6, 0.3, 0.1], [-0.3, 0.5, -0.2], [0.1, -0.4, 0.5]],
+                   dtype=np.float32)
+
+    def chain(xp, a):
+        # the host DWT works in place: hand it copies
+        ycc = mct_ops.ict_forward(xp, a[0], a[1], a[2])
+        fwd = [dwt_ops.forward(xp, xp.array(c), rect, 3, True) for c in ycc]
+        inv = [dwt_ops.inverse(xp, xp.array(c), rect, 3, True) for c in fwd]
+        # the quotient, not its floor: a few floors in a million differ
+        return (fwd + [xp.abs(c) / xp.float32(0.0213720) for c in fwd]
+                + list(mct_ops.ict_inverse(xp, *inv))
+                + mct_ops.custom_mct_forward(xp, inv, mat))
+
+    host = chain(np, x)
+    dev = jax.jit(lambda a: chain(jnp, a))(x)
+    return all(np.array_equal(h, np.asarray(d)) for h, d in zip(host, dev))

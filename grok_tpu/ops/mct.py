@@ -81,12 +81,18 @@ def dc_shift_inverse(xp, x, prec: int, signed: bool, clip: bool = True):
 
 
 def custom_mct_forward(xp, comps, matrix):
-    """Part-2 custom matrix MCT: comps is a list of arrays, matrix [N, N]."""
-    n = len(comps)
-    stacked = xp.stack(comps, axis=0).astype(matrix.dtype)
-    flat = stacked.reshape(n, -1)
-    out = matrix @ flat
-    return [out[i].reshape(comps[i].shape) for i in range(n)]
+    """Part-2 custom matrix MCT: comps is a list of float32 arrays, matrix
+    [N, N]. out[i] = sum_j matrix[i, j] * comps[j], summed in j order with
+    every product rounded to float32, like the ICT above: no matrix unit
+    and no reduced-precision matmul, so host and device round alike."""
+    m = np.asarray(matrix, dtype=np.float32)
+    out = []
+    for i in range(len(comps)):
+        acc = m[i, 0] * comps[0]
+        for j in range(1, len(comps)):
+            acc = acc + m[i, j] * comps[j]
+        out.append(acc)
+    return out
 
 
 def custom_mct_inverse(xp, comps, matrix_inv):

@@ -49,21 +49,16 @@ def _make_mesh(n_devices=None):
 
 
 def _device_irrev_default() -> bool:
-    """Platform-gated default for ``device_irreversible=None``.
-
-    On TPU the device float (9/7 / custom-MCT) chain rounds identically to
-    the host (no FMA contraction on the VPU elementwise path; hardware-
-    verified by tools/fma_hw_check.py, re-run as a periodic gate), so lossy
-    tiles ride the mesh and the stream stays byte-identical. On the CPU
-    simulation backend LLVM FMA contraction can drift ±1 ulp, so the
-    default keeps irreversible tiles on the host path there; pass
+    """Default for ``device_irreversible=None``: lossy (9/7 / custom-MCT)
+    tiles ride the mesh only where the device float chain rounds exactly
+    like the host (:func:`jax_pipeline.float_chain_exact`, measured on the
+    device), so the stream stays byte-identical. Where the compiler
+    contracts mul+add into FMAs (XLA:CPU does) samples can move by one LSB,
+    and the default keeps irreversible tiles on the host path; pass
     ``device_irreversible=True`` explicitly to override."""
-    try:
-        import jax
+    from ..ops import jax_pipeline
 
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
+    return jax_pipeline.float_chain_exact()
 
 
 def _tile_fingerprint(siz, tcp, ti):
@@ -151,12 +146,12 @@ def transform_tiles_on_mesh(image, siz, tcp, params, tiles, mesh,
 
     from ..ops import jax_pipeline
 
-    if device_irreversible is None:
-        device_irreversible = _device_irrev_default()
     n_dev = mesh.shape["tile"]
     groups: dict[tuple, list[int]] = {}
     subsampled = any(c.dx != 1 or c.dy != 1 for c in siz.comps)
     irrev = bool(tcp.tccps and tcp.tccps[0].irreversible)
+    if irrev and device_irreversible is None:
+        device_irreversible = _device_irrev_default()
     coeff_map: dict[int, list[np.ndarray]] = {}
     if subsampled or (irrev and not device_irreversible):
         return coeff_map
@@ -197,7 +192,7 @@ def transform_tiles_on_mesh(image, siz, tcp, params, tiles, mesh,
         # dispatch, submitted back-to-back without waiting — the caller
         # fetches each chunk lazily via the returned getter, so the host
         # entropy stage for chunk k runs while the device transforms
-        # chunk k+1 (on real TPU this also hides the D2H DMA)
+        # chunk k+1 (and the device-to-host copy of chunk k)
         chunk = max(n_dev, 1)
         for c0 in range(0, len(batch_tiles), chunk):
             sub = batch_tiles[c0:c0 + chunk]
@@ -295,21 +290,19 @@ def compress_distributed(image, params: CompressParams | None = None,
                          entropy_workers: int | None = None,
                          entropy_threads: int | None = None) -> bytes:
     """Distributed encode over a tile mesh; byte-identical to compress()
-    under the platform-gated default (see :func:`_device_irrev_default`).
+    under the measured default (see :func:`_device_irrev_default`).
 
     Reversible (5/3) tiles are byte-identical on every backend (integer
     arithmetic). Irreversible (9/7) tiles ride the mesh by default only
-    on TPU, where the device float chain rounds identically to the host
-    (hardware-verified by tools/fma_hw_check.py); on the CPU simulation
-    backend they default to the host transform because LLVM FMA
-    contraction can drift ±1 ulp. Pass ``device_irreversible=True`` to
-    force lossy tiles onto a non-TPU mesh (equal quality, possibly not
-    byte-equal to the host stream) or ``False`` to force the host path
-    everywhere.
+    where the device float chain rounds exactly like the host; elsewhere
+    (XLA:CPU contracts mul+add into FMAs, ±1 LSB) they default to the host
+    transform. Pass ``device_irreversible=True`` to force lossy tiles onto
+    the mesh anyway (equal quality, possibly not byte-equal to the host
+    stream) or ``False`` to force the host path everywhere.
 
     The entropy stage (T1 + T2) fans the mesh-transformed tiles out over
-    a host worker pool (the TPU analogue of the reference's per-tile
-    T1CompressScheduler fan-out); ``entropy_workers`` pins the pool width
+    a host worker pool (the device-mesh analogue of the reference's
+    per-tile T1CompressScheduler fan-out); ``entropy_workers`` pins the pool width
     (default: every available core) and ``entropy_threads`` the
     per-worker native team size — the scaling harness uses
     (n_devices, 1) to model per-host cores that scale with the pod."""
@@ -368,7 +361,7 @@ def decompress_distributed(data, params=None, mesh=None,
                            entropy_workers: int | None = None,
                            entropy_threads: int | None = None):
     """Distributed decode over a tile mesh; output identical to
-    decompress() under the platform-gated default.
+    decompress() under the measured default (:func:`_device_irrev_default`).
 
     The mirror of :func:`compress_distributed` (P2): tile bodies are
     entropy-decoded on the host pool into int32 staging planes
@@ -379,13 +372,12 @@ def decompress_distributed(data, params=None, mesh=None,
     ``jax_pipeline.build_inverse`` runs single-chip); the reconstructed
     tiles ride the normal ordered paste. 5/3 tiles are bit-exact vs the
     host path on every backend (integer arithmetic). 9/7 / custom-MCT
-    tiles ride the mesh by default only on TPU, where the VPU's f32
-    rounding is host-identical (hardware-verified by
-    tools/fma_hw_check.py) so the output Image equals ``gk.decompress``
-    sample-for-sample; on the CPU simulation backend they default to the
-    host inverse (LLVM FMA contraction can drift ±1 LSB on rare
-    samples). ``device_irreversible=True`` forces them onto a non-TPU
-    mesh anyway; ``False`` forces the host inverse everywhere.
+    tiles ride the mesh by default only where the device float chain
+    rounds exactly like the host, so the output Image equals
+    ``gk.decompress`` sample-for-sample; elsewhere (XLA:CPU FMA
+    contraction, ±1 LSB on rare samples) they default to the host
+    inverse. ``device_irreversible=True`` forces them onto the mesh
+    anyway; ``False`` forces the host inverse everywhere.
 
     Tiles that fail entropy decode, differ in geometry/coding params, or
     fall outside the dominant group take the per-tile host path inside the
@@ -403,8 +395,6 @@ def decompress_distributed(data, params=None, mesh=None,
     from ..ops import jax_pipeline
     from ..tile.tile_processor import TileProcessor
 
-    if device_irreversible is None:
-        device_irreversible = _device_irrev_default()
     dec = Decoder(data, params)
     p = dec.params
     if entropy_workers is not None and not p.num_threads:
@@ -423,6 +413,8 @@ def decompress_distributed(data, params=None, mesh=None,
             except Exception:
                 continue  # corrupt headers: host path zero-fills it
             irrev = bool(tcp.tccps[0].irreversible)
+            if (irrev or tcp.mct == 2) and device_irreversible is None:
+                device_irreversible = _device_irrev_default()
             if (irrev or tcp.mct == 2) and not device_irreversible:
                 continue
             parsed[ti] = (tcp, body, packed)
@@ -556,13 +548,13 @@ def compress_frames(images, params: CompressParams | None = None,
 
     Frames whose geometry differs from the first frame's, subsampled or
     multi-tile inputs fall back to the per-frame host path (same output).
-    Irreversible (9/7) sequences batch on the mesh by default only on
-    TPU, where the device float chain rounds identically to the host
-    (hardware-verified by tools/fma_hw_check.py) and the byte-identity
-    guarantee covers the lossy path too; on the CPU simulation backend
-    they default to the host transform (LLVM FMA contraction can drift
-    ±1 ulp — equal quality, not byte-equal). ``device_irreversible=True``
-    forces mesh batching anyway; ``False`` forces the host transform.
+    Irreversible (9/7) sequences batch on the mesh by default only where
+    the device float chain rounds exactly like the host (measured by
+    :func:`jax_pipeline.float_chain_exact`), so the byte-identity
+    guarantee covers the lossy path too; elsewhere they default to the
+    host transform (FMA contraction, ±1 LSB — equal quality, not
+    byte-equal). ``device_irreversible=True`` forces mesh batching
+    anyway; ``False`` forces the host transform.
     """
     import jax
     import jax.numpy as jnp
@@ -574,8 +566,6 @@ def compress_frames(images, params: CompressParams | None = None,
 
     from ..ops import jax_pipeline
 
-    if device_irreversible is None:
-        device_irreversible = _device_irrev_default()
     params = params or CompressParams()
     params.validate()
     if not images:
@@ -600,6 +590,8 @@ def compress_frames(images, params: CompressParams | None = None,
         )
 
     irrev = bool(tcp.tccps and tcp.tccps[0].irreversible)
+    if irrev and device_irreversible is None:
+        device_irreversible = _device_irrev_default()
     batch_idx = [
         i for i, im in enumerate(images)
         if _same_geometry(im) and not subsampled and siz.num_tiles == 1

@@ -1,4 +1,4 @@
-"""Mesh-sharded codec components (SURVEY §2.3 P1-P8 TPU equivalents).
+"""Mesh-sharded codec components (SURVEY §2.3 P1-P8 device-mesh equivalents).
 
 The reference's parallelism is a single-host thread pool; here the same
 axes become mesh axes with XLA collectives:
@@ -394,7 +394,7 @@ def make_auto_sharded_dwt(mesh, rect, levels: int, irreversible: bool):
 
     The hand-rolled strip kernels above pin one ppermute per lifting step
     but require even, equally-divisible shards. For odd dimensions or
-    odd canvas origins (parity 1) the TPU-idiomatic route is to let the
+    odd canvas origins (parity 1) the XLA-idiomatic route is to let the
     XLA partitioner insert the halo exchanges itself: trace the general
     host lifting (ops/dwt.py — full parity/odd-size handling) over a
     Y-sharded global array. Output is already in codestream (Mallat)

@@ -2,10 +2,13 @@
 
 - ebcot_np: lane-parallel numpy reference (bit-exact, used by tests)
 - native:   C++ batched coder (fast host path; bit-identical to ebcot_np)
-- ebcot_jax: device (TPU) lockstep coder
+- ebcot_jax: device lockstep coder (plain jax.lax)
+- ht-device: the HT cleanup coder on the device (t1/ht_jax.py,
+  t1/ht_jax_dec.py); Part-1 styles stay on the host coder
 
 select_backend() resolves the implementation: GROK_TPU_T1 env var
-("native" | "numpy" | "jax" | a registered name) or native-if-available.
+("native" | "numpy" | "jax" | "ht-device" | a registered name) or
+native-if-available.
 
 register_backend() is the pluggable-accelerator hook (capability parity
 with the reference's T1 plugin framework, plugin/plugin_interface.h:134 +
@@ -75,13 +78,9 @@ def _select(name: str | None = None):
         from . import ebcot_jax
 
         return ebcot_jax
-    if name == "pallas":
-        from . import ebcot_pallas
-
-        return ebcot_pallas
     if name == "ht-device":
-        # device (TPU) HT cleanup coder; Part-1 styles stay on the default
-        # host coder, the HT path (ht.encode_cblks) routes to ht_jax
+        # device HT cleanup coder; Part-1 styles stay on the default host
+        # coder, the HT path (ht.encode_cblks) routes to ht_jax
         from . import native
 
         if native.available():

@@ -1,6 +1,6 @@
-"""Device (TPU) lockstep EBCOT Tier-1 coder — jax.lax formulation.
+"""Device lockstep EBCOT Tier-1 coder — jax.lax formulation.
 
-The same lane-parallel algorithm as ebcot_np.py compiled onto the chip:
+The same lane-parallel algorithm as ebcot_np.py compiled for the device:
 every MQ register, context table and flag plane lives in an [.., N] array
 with the codeblock batch as the minor (vector) dimension, and the standard's
 sequential scan becomes nested lax.fori_loops whose body advances all N

@@ -3,7 +3,7 @@
 Lane-parallel formulation across codeblocks: every pass scans the padded
 [Hmax, Wmax] geometry once, and all per-position decisions happen as masked
 vector ops over the N-block lane dimension, feeding the batched MQ coder.
-This is the TPU-native reformulation of the reference's per-block scalar
+This is the lane-parallel reformulation of the reference's per-block scalar
 coder (t1/t1_part1/T1.cpp compress_cblk/decompress passes); the scan is
 sequential (as the standard requires) but the block batch rides the lanes.
 

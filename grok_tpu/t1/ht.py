@@ -650,7 +650,7 @@ def encode_cblks(coeffs, heights, widths, orients, num_threads: int = 0,
 
     if device is None:
         device = os.environ.get("GROK_TPU_T1") == "ht-device"
-    if device and not refine:
+    if device:
         from . import ht_jax
 
         return ht_jax.encode_cblks(coeffs, heights, widths, orients,
@@ -754,14 +754,17 @@ def decode_cblks(data, lengths, numbps, npasses, heights, widths, orients,
     multi = (np.asarray(numbps) > 1) | (np.asarray(npasses) > 1)
     if device is None:
         device = os.environ.get("GROK_TPU_T1") == "ht-device"
-    if device and not multi.any():
+    if device:
         from . import ht_jax_dec
 
-        out = ht_jax_dec.decode_cleanup_batch(
-            np.asarray(data), lengths, heights, widths, block_h, block_w)
-        zero = (np.asarray(npasses) <= 0) | (np.asarray(lengths) <= 0)
-        out[zero] = 0
-        return out, np.asarray(numbps, dtype=np.int64).copy()
+        if not multi.any():
+            out = ht_jax_dec.decode_cleanup_batch(
+                np.asarray(data), lengths, heights, widths, block_h, block_w)
+            zero = (np.asarray(npasses) <= 0) | (np.asarray(lengths) <= 0)
+            out[zero] = 0
+            return out, np.asarray(numbps, dtype=np.int64).copy()
+        # multi-pass (refinement) sets decode on the host
+        ht_jax_dec.STATS["host_fallbacks"] += int(data.shape[0])
     if _native.available() and not multi.any():
         return _native.ht_decode_cblks(
             data, lengths, numbps, npasses, heights, widths, orients,

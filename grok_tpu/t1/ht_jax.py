@@ -1,8 +1,8 @@
-"""Device (TPU) HTJ2K cleanup-pass encoder — batched FBCOT on XLA.
+"""Device HTJ2K cleanup-pass encoder — batched FBCOT on XLA.
 
-TPU-native reformulation of the HT cleanup pass (parity target:
-/root/reference/src/lib/jp2/t1/t1_ht/coding/ojph_block_encoder.cpp:470 and
-this repo's scalar oracle t1/ht.py). The design exploits the property that
+Array reformulation of the HT cleanup pass (parity target: the
+reference's t1_ht/coding/ojph_block_encoder.cpp:470 and this repo's
+scalar oracle t1/ht.py). The design exploits the property that
 cleanup-pass significance is a pure function of the input magnitudes, so
 unlike the MQ coder there is no feedback loop through the arithmetic-coder
 state:
@@ -18,13 +18,13 @@ state:
 3. **Bit packing** of variable-length items into each stream uses an
    exclusive cumsum of lengths + a sorted segment-sum (cumsum/searchsorted,
    exploiting that disjoint-bit ORs are adds), with no scatter.
-4. **Byte stuffing** (0xFF rule for MagSgn/MEL, the >0x8F rule for VLC) is
-   resolved by fixpoint iteration: stuffing events are rare, so a handful
-   of fully-parallel passes converge instead of a byte-serial scan.
+4. **Byte stuffing** (0xFF rule for MagSgn/MEL, the >0x8F rule for VLC)
+   runs on the host (native ht_stuff_words) during compaction: each
+   stuffed byte's width depends on the byte before it, a serial chain.
 
 Per-block fixed-capacity MagSgn/MEL/VLC segments are emitted on device;
-the host compacts them (termination + MEL/VLC fuse + Scup patch), which is
-O(bytes) memcpy. Streams are byte-identical to the scalar/native coders.
+the host compacts them (stuffing, termination, MEL/VLC fuse, Scup patch),
+which is O(bytes). Streams are byte-identical to the scalar/native coders.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ def _mask_u32(lens):
     return jnp.left_shift(np.uint32(1), lens.astype(jnp.uint32)) - np.uint32(1)
 
 
-def _pack_bits(vals, lens, cap_words, dense=None):
+def _pack_bits(vals, lens, cap_words):
     """Pack per-item (value, bit-length) sequences into uint32 word arrays.
 
     vals: [N, M] uint32 (only low `lens` bits may be set)
@@ -94,22 +94,12 @@ def _pack_bits(vals, lens, cap_words, dense=None):
     Returns (words [N, cap_words] uint32 LSB-first, total_bits [N] int32).
 
     No scatter: since bit offsets are monotone in the item index, the OR of
-    disjoint-bit contributions per word equals a segment-sum. Two exact
-    formulations:
-
-    - dense (TPU default): words[k] = sum_i lo_i*(w0_i==k) + hi_i*(w0_i+1==k)
-      as one fused masked uint32 reduction over items — disjoint bits mean
-      the integer sum never carries, so sum == OR. O(M * cap_words) dense
-      VPU work, but NO gathers/searchsorted, which dominate on TPU
-      (measured 650 of 680 ms of the whole encode program on a v5e).
-    - sorted (CPU default): difference of wraparound cumsums at
-      searchsorted boundaries — O(M log M)-ish, gather-friendly backends.
+    disjoint-bit contributions per word equals a segment-sum, taken as the
+    difference of wraparound cumsums at searchsorted word boundaries.
     """
     import jax
     import jax.numpy as jnp
 
-    if dense is None:
-        dense = jax.default_backend() == "tpu"
     vals = vals & _mask_u32(lens)
     off_end = jnp.cumsum(lens, axis=1)
     off = off_end - lens
@@ -119,15 +109,6 @@ def _pack_bits(vals, lens, cap_words, dense=None):
     lo = jnp.left_shift(vals, s)
     hi = jnp.right_shift(jnp.right_shift(vals, np.uint32(31) - s),
                          np.uint32(1))
-
-    if dense:
-        k = jnp.arange(cap_words, dtype=jnp.int32)
-        w0e = w0[:, :, None]
-        ke = k[None, None, :]
-        contrib = (jnp.where(w0e == ke, lo[:, :, None], np.uint32(0))
-                   | jnp.where(w0e + 1 == ke, hi[:, :, None], np.uint32(0)))
-        words = jnp.sum(contrib, axis=1, dtype=jnp.uint32)
-        return words, total
 
     ss_r = jax.vmap(lambda a: jnp.searchsorted(
         a, jnp.arange(cap_words, dtype=jnp.int32), side="right"))
@@ -145,46 +126,24 @@ def _pack_bits(vals, lens, cap_words, dense=None):
     return words, total
 
 
-def _extract(words_padded, p, nbits_mask, dense=None):
+def _extract(words_padded, p, nbits_mask):
     """Read bit fields from packed words at per-element bit positions.
 
     words_padded: [N, W+1] uint32 (one zero pad word), p: [N, C] int32 bit
     positions, nbits_mask: uint32 mask array (or scalar). Returns the
-    LSB-first field values.
-
-    dense (TPU default): the two word reads are one-hot masked reductions
-    over the word axis instead of take_along_axis — per-lane dynamic
-    gathers are the dominant cost of the HT decode scan on TPU. Index
-    semantics match the gather path (out-of-range clamps to the pad word).
+    LSB-first field values. Out-of-range positions read the zero pad word
+    (indices are clamped, never left to the backend's gather semantics).
     """
-    import jax
     import jax.numpy as jnp
 
-    if dense is None:
-        dense = jax.default_backend() == "tpu"
     wi = p >> 5
     sh = (p & 31).astype(jnp.uint32)
     last = words_padded.shape[1] - 1
-    if dense:
-        k = jnp.arange(words_padded.shape[1], dtype=wi.dtype)
-        wp = words_padded[:, None, :]
-        sel0 = jnp.minimum(wi, last)[:, :, None] == k[None, None, :]
-        sel1 = jnp.minimum(wi + 1, last)[:, :, None] == k[None, None, :]
-        w0 = jnp.sum(jnp.where(sel0, wp, np.uint32(0)), axis=-1,
-                     dtype=jnp.uint32)
-        w1 = jnp.sum(jnp.where(sel1, wp, np.uint32(0)), axis=-1,
-                     dtype=jnp.uint32)
-    else:
-        # clamp like the dense path: out-of-range positions read the zero
-        # pad word (take_along_axis out-of-range behavior is
-        # backend-dependent — wrapped reads measured on the v5e)
-        w0 = jnp.take_along_axis(words_padded, jnp.clip(wi, 0, last), axis=1)
-        w1 = jnp.take_along_axis(words_padded, jnp.clip(wi + 1, 0, last),
-                                 axis=1)
+    w0 = jnp.take_along_axis(words_padded, jnp.clip(wi, 0, last), axis=1)
+    w1 = jnp.take_along_axis(words_padded, jnp.clip(wi + 1, 0, last), axis=1)
     chunk = jnp.right_shift(w0, sh) | jnp.left_shift(
         jnp.left_shift(w1, np.uint32(31) - sh), np.uint32(1))
     return chunk & nbits_mask
-
 
 
 def _chunk_items(vals, lens, K):
@@ -198,9 +157,8 @@ def _chunk_items(vals, lens, K):
     import jax
 
     if K <= 1:
-        # barrier: keep the item producers from fusing into the dense
-        # pack reduction (XLA re-computes fused producers per output
-        # word; measured 4x on the MagSgn pack)
+        # barrier: keep the item producers from fusing into the pack
+        # (a fused producer is recomputed per use)
         return jax.lax.optimization_barrier((vals, lens))
     n, M = vals.shape
     vals = vals & _mask_u32(lens)  # drop value bits beyond each length
@@ -211,6 +169,13 @@ def _chunk_items(vals, lens, K):
     for k in range(K):
         chunk = chunk | jnp.left_shift(v[:, :, k], off[:, :, k].astype(jnp.uint32))
     return jax.lax.optimization_barrier((chunk, jnp.sum(l, axis=2)))
+
+
+def _cxt_vlc_lookup(idx):
+    """CxtVLC table entries for int32 indices in [0, 4096)."""
+    import jax.numpy as jnp
+
+    return jnp.asarray(_TBL_NP)[idx]
 
 
 # ------------------------------------------------------------ the encoder
@@ -292,33 +257,16 @@ def _encode_device(coeffs, heights, widths, bh, bw, caps):
         sum(((e_k[k] == emax).astype(jnp.int32) << k) for k in range(4)),
         0)
 
-    # CxtVLC lookup as a two-level one-hot contraction: a plain 4096-entry
-    # gather over [n,32,32] indices costs ~15 ms on the v5e (7 ns/lookup)
-    # while the row-select einsum + column dot runs on the MXU/VPU in
-    # ~0.25 ms (60x; exact: f32 one-hot sums select one 16-bit entry)
     idx = (c_q << 8) | (rho << 4) | eps
     idx = jnp.where(line0, idx, idx + 2048)
-    # byte planes: TPU einsum multiplies in bf16 by default, which rounds
-    # 16-bit table entries; integers <= 255 are bf16-exact, so each byte
-    # plane contracts exactly and the uint16 entry is reassembled
-    tbl2d = _TBL_NP.reshape(64, 64)
-    t2_lo = jnp.asarray((tbl2d & 0xFF).astype(np.float32))
-    t2_hi = jnp.asarray((tbl2d >> 8).astype(np.float32))
-    k64 = jnp.arange(64, dtype=jnp.int32)
-    oh_hi = (idx[..., None] >> 6 == k64).astype(jnp.float32)
-    rows_lo = jnp.einsum("nqwk,kl->nqwl", oh_hi, t2_lo)
-    rows_hi = jnp.einsum("nqwk,kl->nqwl", oh_hi, t2_hi)
-    oh_lo = ((idx & 63)[..., None] == k64).astype(jnp.float32)
-    tup = (jnp.sum(rows_lo * oh_lo, -1).astype(jnp.int32)
-           | (jnp.sum(rows_hi * oh_lo, -1).astype(jnp.int32) << 8))
+    tup = _cxt_vlc_lookup(idx)
     cwd = (tup >> 8).astype(jnp.uint32)
     cwd_len = jnp.where(inq, (tup >> 4) & 7, 0)
     ek_nib = tup & 0xF
 
     # ---- MagSgn items: quad-major, k = 0..3 (ht.py:291-294).
     # Chunks are folded directly from the four per-k arrays — the generic
-    # stack->reshape->chunk route materializes two [n, 4096] planes that
-    # cost more than the pack itself (measured ~6 ms vs the 2.6 ms pack)
+    # stack->reshape->chunk route materializes two [n, 4096] planes
     mmax_s = caps.get("mmax", 32)
     ms_k = 4 if mmax_s * 4 <= 32 else (2 if mmax_s * 2 <= 32 else 1)
     lens_k = [jnp.where(sig[k], uq - ((ek_nib >> k) & 1), 0)
@@ -454,14 +402,10 @@ def _encode_device(coeffs, heights, widths, bh, bw, caps):
     mel_cv, mel_cl = _chunk_items(mel_v, mel_l, 5)
     mel_words, mel_total = _pack_bits(mel_cv, mel_cl, caps["mel_words"])
 
-    # Byte-stuffing happens on the HOST (native ht_stuff_words) during
-    # compaction: the stuffed byte boundaries form a serial chain (each
-    # byte's width depends on whether the previous one was 0xFF), and the
-    # on-device fixpoint formulation this replaced converged in O(#0xFF
-    # events) full-width iterations of TPU-hostile gathers — measured
-    # ~90 ms/codeblock on the v5e, 60x the cost of everything else in this
-    # program combined. The packed word arrays are the same size as the
-    # stuffed bytes, so the D2H transfer doesn't grow.
+    # Byte-stuffing happens on the host during compaction (_stuff_host):
+    # the stuffed byte boundaries form a serial chain. The packed word
+    # arrays are the same size as the stuffed bytes, so the device-to-host
+    # copy does not grow.
     dist = jnp.sum(
         (coeffs * jnp.where(valid, 1, 0)).astype(jnp.float32) ** 2,
         axis=(1, 2))
@@ -616,22 +560,31 @@ def _compact(dev, n, heights, widths):
 
 SUPPORTED_STYLES = 0
 
+# blocks coded on the device and blocks sent to the host coder instead
+# (running totals, read by chip_smoke.py's HT coverage check)
+STATS = {"blocks": 0, "host_blocks": 0}
+
+
+def reset_stats():
+    for k in STATS:
+        STATS[k] = 0
+
 
 def encode_cleanup_batch(coeffs, heights, widths):
     """Encode a [N, bh, bw] batch of codeblocks on the device; returns the
     list of cleanup codeword segments (byte-identical to ht.encode_cleanup)."""
-    import jax.numpy as jnp
+    from ..ops.jax_pipeline import pin_device
 
-    coeffs = np.ascontiguousarray(coeffs)
+    coeffs = np.ascontiguousarray(coeffs, dtype=np.int32)
     n, bh, bw = coeffs.shape
     mx = int(np.abs(coeffs).max(initial=0))
     if mx >= DEVICE_MAG_LIMIT:
         raise ValueError("magnitudes exceed the device HT range")
     mmax = max(int(2 * mx - 1).bit_length() if mx else 1, 1)
-    fn = _build(n, bh, bw, mmax)
-    dev = fn(jnp.asarray(coeffs, dtype=jnp.int32),
-             jnp.asarray(np.asarray(heights, dtype=np.int32)),
-             jnp.asarray(np.asarray(widths, dtype=np.int32)))
+    fn = pin_device(_build(n, bh, bw, mmax))
+    dev = fn(coeffs, np.asarray(heights, dtype=np.int32),
+             np.asarray(widths, dtype=np.int32))
+    STATS["blocks"] += n
     return _compact(dev, n, heights, widths)
 
 
@@ -649,6 +602,7 @@ def encode_cblks(coeffs, heights, widths, orients, num_threads: int = 0,
             or coeffs.shape[2] < 4 or coeffs.shape[1] % 2
             or coeffs.shape[2] % 2
             or int(np.abs(coeffs).max(initial=0)) >= DEVICE_MAG_LIMIT):
+        STATS["host_blocks"] += coeffs.shape[0]
         return _host.encode_cblks(coeffs, heights, widths, orients,
                                   num_threads, refine, device=False)
     n = coeffs.shape[0]

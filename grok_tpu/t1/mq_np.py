@@ -2,13 +2,13 @@
 
 Lane-parallel formulation: one MQ encoder/decoder *per codeblock*, with all
 register state held in [N]-shaped arrays so every ENCODE/DECODE step is a
-handful of vectorized ops across the block batch. This is the TPU-native
+handful of vectorized ops across the block batch. This is the batched
 reformulation of the reference's per-thread scalar coder
 (t1/t1_part1/mqc.h, mqc_enc.cpp, mqc_dec.cpp): lanes = codeblocks, the
 per-bit state machine runs in lockstep with per-lane masks.
 
-The same data layout ports to Pallas (lanes across the vector unit); this
-numpy version is the bit-exact host reference and fallback.
+The same data layout carries over to jax.lax (t1/ebcot_jax.py); this numpy
+version is the bit-exact host reference and fallback.
 """
 
 from __future__ import annotations

@@ -32,15 +32,9 @@ _LOCK = threading.RLock()
 _LIB: ctypes.CDLL | None = None
 _TRIED = False
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_SRCS = [
-    os.path.join(_NATIVE_DIR, "t1_coder.cpp"),
-    os.path.join(_NATIVE_DIR, "ht_coder.cpp"),
-    os.path.join(_NATIVE_DIR, "pipeline.cpp"),
-    os.path.join(_NATIVE_DIR, "t2_codec.cpp"),
-    os.path.join(_NATIVE_DIR, "uring_io.cpp"),
-]
-_OUT = os.path.join(_NATIVE_DIR, "libgrok_tpu_native.so")
+_SRCS = ["t1_coder.cpp", "ht_coder.cpp", "pipeline.cpp", "t2_codec.cpp",
+         "uring_io.cpp"]
+_NAME = "libgrok_tpu_native.so"
 
 
 def _build() -> str | None:
@@ -50,33 +44,35 @@ def _build() -> str | None:
     override = os.environ.get("GROK_TPU_NATIVE_LIB")
     if override:
         return override if os.path.exists(override) else None
-    srcs = [os.path.abspath(s) for s in _SRCS]
-    out = os.path.abspath(_OUT)
-    import glob as _glob
+    import glob
 
-    deps = srcs + _glob.glob(os.path.join(_NATIVE_DIR, "*.h"))
-    if os.path.exists(out) and all(
-        os.path.getmtime(out) >= os.path.getmtime(s) for s in deps
-    ):
-        return out
+    from ..core import native_build
+
+    srcs = [os.path.join(native_build.NATIVE_DIR, s) for s in _SRCS]
+    deps = srcs + glob.glob(os.path.join(native_build.NATIVE_DIR, "*.h"))
     extra = os.environ.get("GROK_TPU_NATIVE_CFLAGS", "").split()
     base = ["g++", "-O3", "-fPIC", "-shared", "-fopenmp", "-std=c++17",
             "-ffp-contract=off",  # keep float op-for-op identical to numpy
             "-march=native",  # built at runtime on the machine that runs it
             *extra]
-    try:
-        r = subprocess.run(base + ["-o", out, *srcs],
-                           capture_output=True, text=True, timeout=240)
-    except (OSError, subprocess.TimeoutExpired):
-        return None
-    if r.returncode != 0:
-        from ..core import logging as log
+    pgo = os.environ.get("GROK_TPU_PGO", "1") != "0"
 
-        log.warn("native T1 build failed: %s", r.stderr[-500:])
-        return None
-    if os.environ.get("GROK_TPU_PGO", "1") != "0":
-        _try_pgo_upgrade(base, srcs, out)
-    return out
+    def compile_to(out):
+        try:
+            r = subprocess.run(base + ["-o", out, *srcs],
+                               capture_output=True, text=True, timeout=240)
+        except (OSError, subprocess.TimeoutExpired):
+            return False
+        if r.returncode != 0:
+            from ..core import logging as log
+
+            log.warn("native T1 build failed: %s", r.stderr[-500:])
+            return False
+        if pgo:
+            _try_pgo_upgrade(base, srcs, out)
+        return True
+
+    return native_build.build(_NAME, deps, base + ["pgo"] * pgo, compile_to)
 
 
 def _try_pgo_upgrade(base_cmd, srcs, out) -> bool:
@@ -198,14 +194,6 @@ def get_lib() -> ctypes.CDLL | None:
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         bind_t1_abi(lib)
-        lib.t1_pack_symbols.argtypes = [
-            u8p, i64p, i32p, i32p,
-            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
-            ctypes.c_int32, ctypes.c_int32,
-            u8p, ctypes.c_int64, i64p, i64p, f64p,
-            ctypes.c_int32, ctypes.c_int32,
-        ]
-        lib.t1_pack_symbols.restype = ctypes.c_int
         u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
         lib.ht_install_tables.argtypes = [u16p, u16p, u16p, u16p]
         lib.ht_install_tables.restype = ctypes.c_int

@@ -2,7 +2,7 @@
 
 Parity targets: t2/T2Compress.cpp (compressPacket/compressHeader) and
 t2/T2Decompress.cpp (readPacketHeader/readPacketData), re-derived from the
-standard. Host-side serial work in the TPU design; the heavy payload bytes
+standard. Host-side serial work; the heavy payload bytes
 come straight from the batched T1 coder.
 """
 

@@ -3,11 +3,11 @@
 Parity target: tile/TileProcessor.cpp (doCompress / decompressT2T1) — the
 orchestration of DC shift -> MCT -> DWT -> T1 -> T2 (and the mirror).
 
-Structure is TPU-native: all codeblocks of a tile are padded into one
+Structure is batch-first: all codeblocks of a tile are padded into one
 [N, cbh, cbw] batch and entropy-coded by the lane-parallel coder in one
 shot (the analogue of the reference's work-stealing block schedulers,
 t1/T1CompressScheduler.cpp, without threads); DWT/MCT run as array ops
-(numpy today, jax on device via ops.backend).
+(numpy/native on the host, jax on the device via ops/jax_pipeline.py).
 """
 
 from __future__ import annotations
@@ -267,12 +267,9 @@ class TileProcessor:
                     mct_enc_matrix=enc_m,
                 )
                 self._dev_fwd = fwd
-            import jax.numpy as jnp
-
             with trace.span("enc.device_fwd"), trace.device_trace():
                 dev_out = fwd(*[
-                    jnp.asarray(
-                        np.ascontiguousarray(comp_arrays[c], dtype=np.int32))
+                    np.ascontiguousarray(comp_arrays[c], dtype=np.int32)
                     for c in range(ncomp)
                 ])
                 coeff_arrays = [np.asarray(x) for x in dev_out]
@@ -1432,12 +1429,9 @@ class TileProcessor:
                 if not hasattr(self, "_dev_inv_cache"):
                     self._dev_inv_cache = {}
                 self._dev_inv_cache[reduce] = inv
-            import jax.numpy as jnp
-
             with trace.span("dec.device_inv"), trace.device_trace():
                 dev_out = inv(*[
-                    jnp.asarray(np.ascontiguousarray(s, dtype=np.int32))
-                    for s in staging
+                    np.ascontiguousarray(s, dtype=np.int32) for s in staging
                 ])
                 return [np.asarray(x) for x in dev_out]
 

@@ -13,6 +13,7 @@
 #include <Python.h>
 
 #include <dlfcn.h>
+#include <unistd.h>
 
 #include <atomic>
 #include <cstdio>
@@ -53,17 +54,17 @@ struct Gil {
     ~Gil() { PyGILState_Release(st); }
 };
 
-// repo root = parent of the directory containing this .so (native/..)
+// repo root = the nearest ancestor of this .so's directory that holds the
+// grok_tpu package (the library is built under native/build/<key>/)
 std::string repo_root() {
     Dl_info info;
     if (dladdr((void*)&repo_root, &info) && info.dli_fname) {
         std::string p = info.dli_fname;
-        auto cut = p.rfind('/');
-        if (cut != std::string::npos) {
-            p.resize(cut);  // .../native
-            cut = p.rfind('/');
-            if (cut != std::string::npos) p.resize(cut);
-            return p;
+        for (auto cut = p.rfind('/'); cut != std::string::npos && cut > 0;
+             cut = p.rfind('/')) {
+            p.resize(cut);
+            if (access((p + "/grok_tpu/__init__.py").c_str(), F_OK) == 0)
+                return p;
         }
     }
     return ".";

@@ -705,7 +705,7 @@ int ht_decode_cblks_c(const uint8_t* data, const int64_t* lengths,
 
 // Byte-stuff device-packed bit streams (the host half of the device HT
 // encoder): ht_jax._encode_device packs MagSgn/MEL/VLC items into LSB-first
-// uint32 word arrays on the TPU (the FLOP-parallel part); this linear pass
+// uint32 word arrays on the device (the parallel part); this linear pass
 // maps each lane's unstuffed bit sequence to the stuffed byte stream plus
 // the partial-byte state ht_jax._compact feeds into segment termination.
 // kind: 0 = ms (byte after 0xFF holds 7 bits), 1 = mel (same rule, bytes

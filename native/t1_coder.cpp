@@ -1166,134 +1166,4 @@ int t1_decode_cblks(const uint8_t* data, const int64_t* lengths,
     return 0;
 }
 
-// ------------------------------------------------------------ symbol packer
-// Host side of the Pallas device T1 encoder (grok_tpu/t1/ebcot_pallas.py):
-// the kernel records one byte per coded decision (valid|raw|bit|ctx) at
-// statically known slots; this walks the per-lane streams through the same
-// scalar MQ coder as the host backend, reproducing streams, pass rates and
-// pass distortions bit-identically (mirror of ebcot_np end_pass / final
-// termination). sym is lane-major: [n, pmaxc, 3, s_pad] uint8.
-int t1_pack_symbols(const uint8_t* sym, const int64_t* mag_sxk,
-                    const int32_t* numbps_a, const int32_t* styles_a,
-                    int64_t n, int32_t pmaxc, int32_t pmax, int64_t s_pad,
-                    int32_t ns, int32_t wd, uint8_t* out, int64_t max_bytes,
-                    int64_t* lengths, int64_t* pass_rates, double* pass_dist,
-                    int32_t max_passes, int32_t num_threads) {
-    const int64_t np4 = (int64_t)ns * wd * 4;   // positions per pass
-    const int64_t ncol = (int64_t)ns * wd;      // quad columns (CUP)
-    const int64_t stride = max_bytes + 2;
-#ifdef _OPENMP
-#pragma omp parallel for schedule(dynamic) \
-    num_threads(resolve_threads(num_threads))
-#endif
-    for (int64_t l = 0; l < n; l++) {
-        const int nb = numbps_a[l];
-        const int npass = nb > 0 ? 3 * nb - 2 : 0;
-        int64_t* rates = pass_rates + l * max_passes;
-        double* dists = pass_dist + l * max_passes;
-        lengths[l] = 0;
-        if (npass == 0) continue;
-        const int sty = styles_a[l];
-        const bool termall = (sty & 0x04) != 0;
-        const bool bypass = (sty & 0x01) != 0;
-        const bool reset = (sty & 0x02) != 0;
-        const int64_t* mag = mag_sxk + l * np4;
-
-        MQEncoder mq;
-        mq.init(out + l * stride, stride);
-
-        auto lpi_f = [&](int plane, int kind) {
-            int rel = nb - 1 - plane;
-            return rel <= 0 ? 0 : (rel - 1) * 3 + 1 + kind;
-        };
-        auto is_raw = [&](int lp, int kind) {
-            return bypass && lp >= 10 && kind != 2;
-        };
-        auto term_after = [&](int lp) {
-            int t = lp == 0 ? 2 : (lp - 1) % 3;
-            return termall ||
-                   (bypass && (lp == 9 || (lp > 9 && (t == 1 || t == 2))));
-        };
-        auto feed = [&](const uint8_t* st, int64_t cnt) {
-            for (int64_t i = 0; i < cnt; i++) {
-                uint8_t r = st[i];
-                if (!(r & 0x80)) continue;
-                int bit = (r >> 5) & 1;
-                if (r & 0x40)
-                    mq.raw_bit(bit);
-                else
-                    mq.encode(bit, r & 0x1F);
-            }
-        };
-        bool last_term = false;
-        auto end_pass = [&](int plane, int kind, double dd) {
-            int lp = lpi_f(plane, kind);
-            bool raw_m = is_raw(lp, kind);
-            bool term = term_after(lp);
-            int64_t r = raw_m ? mq.raw_safe_len()
-                              : mq.pos + (27 - mq.ct + 7) / 8;
-            if (term)
-                r = raw_m ? mq.raw_terminate_restart_mq()
-                          : mq.terminate_restart();
-            rates[lp] = r;
-            dists[lp] = dd;
-            last_term = term;
-            if (reset) mq.reset_ctx();
-            if (term && is_raw(lp + 1, (kind + 1) % 3)) mq.raw_start();
-        };
-
-        for (int plane = pmax - 1; plane >= 0; plane--) {
-            const int pidx = pmaxc - 1 - plane;
-            const uint8_t* base =
-                sym + ((l * pmaxc + pidx) * 3 + 0) * s_pad;
-            const DistConsts dc(plane);
-            if (nb - 1 > plane) {
-                const uint8_t* st = base;  // SPP: (pos) x (zc, sign)
-                feed(st, np4 * 2);
-                double dd = 0;
-                for (int64_t i = 0; i < np4; i++)
-                    if (st[2 * i + 1] & 0x80) dd += dd_sig(mag[i], dc);
-                end_pass(plane, 0, dd);
-
-                st = base + s_pad;  // MRP: one slot per position
-                feed(st, np4);
-                dd = 0;
-                for (int64_t i = 0; i < np4; i++)
-                    if (st[i] & 0x80) dd += dd_ref(mag[i], dc);
-                end_pass(plane, 1, dd);
-            }
-            if (nb - 1 >= plane) {
-                const uint8_t* st = base + 2 * s_pad;  // CUP: 11/col + segsym
-                feed(st, ncol * 11 + 4);
-                double dd = 0;
-                for (int64_t c2 = 0; c2 < ncol; c2++)
-                    for (int k = 0; k < 4; k++)
-                        if (st[c2 * 11 + 4 + 2 * k] & 0x80)
-                            dd += dd_sig(mag[c2 * 4 + k], dc);
-                end_pass(plane, 2, dd);
-            }
-        }
-
-        const int final_lp = npass - 1;
-        const int fkind = final_lp == 0 ? 2 : (final_lp - 1) % 3;
-        int64_t len;
-        if (last_term) {
-            len = rates[final_lp];
-        } else if (is_raw(final_lp, fkind)) {
-            len = mq.raw_terminate_restart_mq();
-        } else {
-            mq.flush();
-            len = mq.length();
-        }
-        lengths[l] = len;
-        rates[final_lp] = len;
-        for (int i = 0; i < npass; i++)
-            if (rates[i] > len) rates[i] = len;
-        if (mq.overflow) lengths[l] = -1;
-    }
-    for (int64_t l = 0; l < n; l++)
-        if (lengths[l] < 0) return 1;
-    return 0;
-}
-
 }  // extern "C"

@@ -155,13 +155,13 @@ def test_embedded_c_host(tmp_path):
     """Compile a pure-C host against the header, embedding Python from C."""
     native = os.path.abspath(os.path.join(os.path.dirname(capi.__file__),
                                           "..", "native"))
-    so = capi.build()
+    libdir = os.path.dirname(capi.build())
     src = tmp_path / "host.c"
     src.write_text(C_HOST)
     exe = tmp_path / "host"
     r = subprocess.run(
         ["gcc", "-O1", str(src), "-o", str(exe), f"-I{native}",
-         f"-L{native}", f"-Wl,-rpath,{native}", "-lgrok_tpu_c"],
+         f"-L{libdir}", f"-Wl,-rpath,{libdir}", "-lgrok_tpu_c"],
         capture_output=True, text=True,
     )
     assert r.returncode == 0, r.stderr

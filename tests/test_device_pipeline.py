@@ -1,9 +1,9 @@
 """Device-resident transform chain (GROK_TPU_DEVICE=jax): the jitted
 DC/MCT/DWT/(de)quant XLA program must match the host pipeline — bit-exact
 for the reversible path everywhere; the irreversible float chain is
-bit-exact ON TPU (hardware-verified by tools/fma_hw_check.py) and within
-±1 LSB on this CPU-simulated run (XLA:CPU's LLVM codegen contracts
-mul+add into FMAs; see ops/jax_pipeline.py)."""
+bit-exact where the device rounds like the host
+(jax_pipeline.float_chain_exact) and within ±1 LSB on the CPU backend
+(XLA:CPU's LLVM codegen contracts mul+add into FMAs)."""
 
 import os
 
@@ -54,10 +54,9 @@ def test_device_rgb_mct_roundtrip():
 
 
 def test_device_custom_mct():
-    """Part-2 custom-MCT must ride the device transform chain too (the
-    [N,N] component matmul is MXU-native): device encode/decode of an
-    mct=2 stream matches the host path within the CPU backend's ±1 LSB
-    float class (bit-exact on TPU — tools/fma_hw_check.py)."""
+    """Part-2 custom-MCT must ride the device transform chain too:
+    device encode/decode of an mct=2 stream matches the host path within
+    the CPU backend's ±1 LSB float class."""
     arr = natural_image(80, 96, 3)
     M = [[0.6, 0.3, 0.1], [-0.3, 0.5, -0.2], [0.1, -0.4, 0.5]]
     im = gk.Image.from_array(arr)
@@ -76,7 +75,7 @@ def test_device_custom_mct():
 
 
 def test_device_irreversible_host_equiv():
-    """±1 LSB on this CPU run; bit-exact on TPU (fma_hw_check)."""
+    """±1 LSB on the CPU backend; see test_float_chain_on_gpu."""
     arr = natural_image(80, 96, 3)
     im = gk.Image.from_array(arr)
     p = gk.CompressParams(num_resolutions=3, irreversible=True)
@@ -89,3 +88,59 @@ def test_device_irreversible_host_equiv():
     dev_err = np.abs(gk.decompress(dev_enc).to_array().astype(int)
                      - arr.astype(int)).max()
     assert dev_err <= host_err + 1
+
+
+def test_float_chain_exact_is_false_on_cpu():
+    """XLA:CPU contracts mul+add into FMAs, and the probe must see it (it
+    keeps lossy tiles off the mesh by default there)."""
+    import jax
+
+    from grok_tpu.ops import jax_pipeline
+
+    if jax.devices()[0].platform != "cpu":
+        pytest.skip("CPU backend property")
+    assert jax_pipeline.float_chain_exact() is False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("custom_mct", [False, True])
+def test_float_chain_on_gpu(gpu_device, custom_mct):
+    """On the card the 9/7 chain is held to its measured property: byte-
+    identical streams when it rounds like the host, else within 1 LSB."""
+    from grok_tpu.ops import jax_pipeline
+
+    arr = natural_image(160, 224, 3)
+    M = [[0.6, 0.3, 0.1], [-0.3, 0.5, -0.2], [0.1, -0.4, 0.5]]
+    p = gk.CompressParams(num_resolutions=5, irreversible=True,
+                          mct_matrix=M if custom_mct else None)
+    im = gk.Image.from_array(arr)
+    stream = gk.compress(im, p)
+    host_enc, dev_enc, host_dec, dev_dec = _host_then_device(im, p, stream)
+    diff = np.abs(host_dec.astype(int) - dev_dec.astype(int)).max()
+    if jax_pipeline.float_chain_exact():
+        assert dev_enc == host_enc
+        assert diff == 0
+    assert diff <= 1
+
+
+def test_device_id_pins_ht_coders(monkeypatch):
+    """GROK_TPU_DEVICE_ID (CLI -G) moves the HT coders to that device,
+    as it does the transform chain, with unchanged output."""
+    import jax
+
+    from grok_tpu.ops.jax_pipeline import pin_device
+    from grok_tpu.t1 import ht_jax
+    from tests.test_ht_device import (_blocks, _check_decode_identical,
+                                      _check_identical)
+
+    if len(jax.devices()) < 2:
+        pytest.skip("needs two devices")
+    rng = np.random.default_rng(31)
+    coeffs = _blocks(rng, 6, 16, 16, mag=300)
+    hw = np.full(6, 16, dtype=np.int64)
+    monkeypatch.setenv("GROK_TPU_DEVICE_ID", "1")
+    out = pin_device(ht_jax._build(6, 16, 16, 10))(
+        coeffs.astype(np.int32), hw.astype(np.int32), hw.astype(np.int32))
+    assert out["max"].devices() == {jax.devices()[1]}
+    _check_identical(coeffs, hw, hw)
+    _check_decode_identical(coeffs, hw, hw, 16, 16)

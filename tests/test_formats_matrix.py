@@ -1,4 +1,4 @@
-"""Raster-format envelope matrix (VERDICT r04 #6).
+"""Raster-format envelope matrix.
 
 Pins exactly which format x bit-depth x layout combinations round-trip
 through io/formats.py, so the capability envelope is a test, not a

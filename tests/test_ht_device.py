@@ -308,43 +308,96 @@ def test_stuff_host_native_matches_python_fallback(monkeypatch):
                 b[2][i], b[3][i], b[4][i]), (kind, i, "tail state")
 
 
-def test_pack_extract_dense_gather_parity():
-    """_pack_bits/_extract dense (TPU) vs gather (CPU) formulations must
-    agree on any backend — without this the dense arithmetic is only ever
-    executed when a TPU is attached (ADVICE r04)."""
+def _np_pack(vals, lens, cap):
+    """Reference bit packer: LSB-first concatenation as Python ints."""
+    words = np.zeros((vals.shape[0], cap), np.uint32)
+    totals = np.zeros(vals.shape[0], np.int64)
+    for i in range(vals.shape[0]):
+        acc = pos = 0
+        for v, ln in zip(vals[i].tolist(), lens[i].tolist()):
+            acc |= (v & ((1 << ln) - 1)) << pos
+            pos += ln
+        totals[i] = pos
+        for k in range(cap):
+            words[i, k] = (acc >> (32 * k)) & 0xFFFFFFFF
+    return words, totals
+
+
+@pytest.mark.parametrize("seed,cap", [(7, 24), (8, 40), (9, 9)])
+def test_pack_extract_match_numpy(seed, cap):
+    """_pack_bits and _extract against a Python-int reference, including
+    reads that run past the packed words into the zero pad word."""
     import jax.numpy as jnp
 
-    from grok_tpu.t1 import ht_jax
-
-    rng = np.random.default_rng(7)
-    n, m, cap = 5, 64, 24
+    rng = np.random.default_rng(seed)
+    n, m = 5, 64
     lens = rng.integers(0, 33, size=(n, m)).astype(np.int32)
-    vals = rng.integers(0, 2 ** 32, size=(n, m), dtype=np.uint64).astype(
-        np.uint32)
-    # keep totals within capacity so both layouts are fully in-range
+    # keep totals within capacity (the callers size caps the same way)
     lens = np.minimum(lens, np.maximum(
         0, cap * 32 - np.cumsum(lens, axis=1) + lens)).astype(np.int32)
-    w_d, t_d = ht_jax._pack_bits(jnp.asarray(vals), jnp.asarray(lens), cap,
-                                 dense=True)
-    w_g, t_g = ht_jax._pack_bits(jnp.asarray(vals), jnp.asarray(lens), cap,
-                                 dense=False)
-    assert np.array_equal(np.asarray(w_d), np.asarray(w_g))
-    assert np.array_equal(np.asarray(t_d), np.asarray(t_g))
+    vals = rng.integers(0, 2 ** 32, size=(n, m), dtype=np.uint64).astype(
+        np.uint32)
+    words, totals = ht_jax._pack_bits(jnp.asarray(vals), jnp.asarray(lens),
+                                      cap)
+    ref_w, ref_t = _np_pack(vals, lens, cap)
+    assert np.array_equal(np.asarray(words), ref_w)
+    assert np.array_equal(np.asarray(totals), ref_t)
 
-    words = np.pad(np.asarray(w_d), ((0, 0), (0, 1)))
-    # in-range positions (the documented clamp semantics only guarantees
-    # out-of-range reads land in the zero pad word)
-    p = rng.integers(0, cap * 32 - 32, size=(n, 13)).astype(np.int32)
-    mask = np.uint32(0xFFFF)
-    e_d = ht_jax._extract(jnp.asarray(words), jnp.asarray(p), mask,
-                          dense=True)
-    e_g = ht_jax._extract(jnp.asarray(words), jnp.asarray(p), mask,
-                          dense=False)
-    assert np.array_equal(np.asarray(e_d), np.asarray(e_g))
-    # past-the-end positions: both paths must clamp into the zero pad word
-    p_hi = np.full((n, 4), (cap + 1) * 32, dtype=np.int32)
-    e_dh = ht_jax._extract(jnp.asarray(words), jnp.asarray(p_hi), mask,
-                           dense=True)
-    e_gh = ht_jax._extract(jnp.asarray(words), jnp.asarray(p_hi), mask,
-                           dense=False)
-    assert np.array_equal(np.asarray(e_dh), np.asarray(e_gh))
+    padded = np.pad(ref_w, ((0, 0), (0, 1)))
+    p = rng.integers(0, (cap + 2) * 32, size=(n, 17)).astype(np.int32)
+    for mask in (np.uint32(0xFFFF), np.uint32(0x7F), np.uint32(0xFFFFFFFF)):
+        got = np.asarray(ht_jax._extract(jnp.asarray(padded),
+                                         jnp.asarray(p), mask))
+        for i in range(n):
+            big = sum(int(w) << (32 * k) for k, w in enumerate(padded[i]))
+            want = [(big >> int(q)) & int(mask) for q in p[i]]
+            assert got[i].tolist() == want, (i, hex(int(mask)))
+
+
+def test_cxt_vlc_lookup_all_indices():
+    """The CxtVLC lookup returns the encoder table entry for every one of
+    the 4096 (context, rho, eps) indices of both row tables."""
+    import jax.numpy as jnp
+
+    idx = np.arange(4096, dtype=np.int32)
+    got = np.asarray(ht_jax._cxt_vlc_lookup(jnp.asarray(idx)))
+    assert np.array_equal(got, ht_jax._TBL_NP)
+    # any leading batch shape, as the encoder uses [n, qh, qw]
+    got3 = np.asarray(ht_jax._cxt_vlc_lookup(
+        jnp.asarray(idx.reshape(4, 32, 32))))
+    assert np.array_equal(got3.ravel(), ht_jax._TBL_NP)
+
+
+def _hw_case(name, rng, n):
+    if name == "dense-small":
+        c = rng.integers(-40, 41, size=(n, 64, 64))
+    elif name == "sparse-1bit":
+        c = ((rng.random((n, 64, 64)) < 0.04)
+             * rng.choice([-1, 1], size=(n, 64, 64)))
+    elif name == "heavy-tail":
+        c = rng.standard_t(2, size=(n, 64, 64)) * 60
+    elif name == "stuffing":
+        c = np.full((n, 64, 64), -((1 << 20) - 1))
+    else:  # wide-mag
+        c = rng.integers(-(1 << 22), 1 << 22, size=(n, 64, 64))
+    return c.astype(np.int64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dense-small", "sparse-1bit", "heavy-tail",
+                                  "stuffing", "wide-mag"])
+def test_device_coder_identical_on_gpu(gpu_device, case):
+    """The HT cleanup coder compiled for the GPU: encode byte-identical to
+    the scalar oracle and decode bit-identical, ragged blocks included."""
+    rng = np.random.default_rng(99)
+    n = 48
+    hs = np.full(n, 64, np.int64)
+    ws = np.full(n, 64, np.int64)
+    hs[1], ws[1] = 33, 47
+    hs[2], ws[2] = 64, 5
+    coeffs = _hw_case(case, rng, n)
+    for i in range(n):
+        coeffs[i, hs[i]:, :] = 0
+        coeffs[i, :, ws[i]:] = 0
+    _check_identical(coeffs, hs, ws)
+    _check_decode_identical(coeffs, hs, ws, 64, 64)

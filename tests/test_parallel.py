@@ -149,10 +149,11 @@ def test_distributed_decode_bit_identical(rng):
     assert np.array_equal(decompress_distributed(st3).to_array(),
                           gk.decompress(st3).to_array())
 
-    # irreversible rides the device chain by default: on TPU it is
-    # byte-identical (hardware-verified, tools/fma_hw_check.py); this
-    # CPU-simulated run may drift at most ±1 LSB on rare samples (LLVM
-    # FMA contraction). The host-inverse opt-out stays exact everywhere.
+    # irreversible rides the device chain by default only where the float
+    # chain rounds like the host (jax_pipeline.float_chain_exact); the
+    # device chain on XLA:CPU may drift at most ±1 LSB on rare samples
+    # (LLVM FMA contraction). The host-inverse opt-out stays exact
+    # everywhere.
     p2 = gk.CompressParams(num_resolutions=3, tile_size=(64, 64),
                            irreversible=True)
     st2 = gk.compress(gk.Image.from_array(arr), p2)
@@ -181,9 +182,9 @@ def test_frame_parallel_cinema_batch(rng):
     ]
     p = gk.CompressParams(profile=PROFILE_CINEMA_2K, framerate=24)
     # host-transform mode: byte-identical to the one-shot encoder on any
-    # backend (the 9/7 default device chain is byte-identical on TPU
-    # only — tools/fma_hw_check.py — so strict identity is asserted on
-    # the deterministic opt-out here)
+    # backend (the 9/7 device chain is byte-identical only where
+    # jax_pipeline.float_chain_exact holds, so strict identity is asserted
+    # on the deterministic opt-out here)
     outs = compress_frames(frames, p, device_irreversible=False)
     assert len(outs) == 3
     for s, st in enumerate(outs):
@@ -262,7 +263,7 @@ def test_sharded_strip_dwt_97(rng):
 def test_sharded_strip_feeds_codeblock_gathering(rng):
     """The layout bridge makes sharded-strip coefficients directly
     consumable by the entropy/T2 stage: a stream built from them is
-    byte-identical to the one-shot encoder (VERDICT round-1 item 5)."""
+    byte-identical to the one-shot encoder."""
     import grok_tpu as gk
     from grok_tpu.codestream.compress import (
         build_siz, build_tcp, encode_tile_to_blob,
@@ -298,7 +299,7 @@ def test_sharded_strip_feeds_codeblock_gathering(rng):
 def test_auto_sharded_dwt_odd_sizes_and_parity(rng):
     """GSPMD-partitioned DWT handles odd dimensions and odd canvas
     origins (parity 1) bit-exactly on the mesh — the cases the strip
-    kernels exclude by construction (VERDICT round-1 item 5)."""
+    kernels exclude by construction."""
     from grok_tpu.parallel.mesh import make_auto_sharded_dwt
 
     n = min(8, len(jax.devices()))

@@ -154,3 +154,11 @@ def test_want_dist_does_not_change_streams(rng):
     assert np.array_equal(a.pass_rates, b.pass_rates)
     assert (b.pass_dist == 0).all()
     assert (a.pass_dist != 0).any()
+
+
+def test_select_backend_pallas_removed():
+    """The Mosaic Part-1 kernel is gone; its name is now unknown."""
+    from grok_tpu.t1 import select_backend
+
+    with pytest.raises(ValueError, match="pallas"):
+        select_backend("pallas")

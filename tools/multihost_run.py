@@ -1,17 +1,17 @@
 #!/usr/bin/env python
-"""Multi-host dryrun/bench: N local CPU processes run the
-jax.distributed multi-host codec (parallel/multihost.py) and process 0's
-assembled stream is asserted byte-identical to single-host gk.compress
-(and the multi-host decode sample-identical to gk.decompress).
+"""Multi-process run of the jax.distributed codec (parallel/multihost.py):
+N local processes encode one image, and process 0's assembled stream is
+asserted byte-identical to single-process gk.compress (and the
+multi-process decode sample-identical to gk.decompress).
 
-Parent:   python tools/multihost_run.py [--nproc 2 4] [--out MULTIHOST_r04.json]
+Parent:   python tools/multihost_run.py [--nproc 2 4] [--gpus] [--out FILE]
 Worker:   (spawned internally with --worker)
 
-Each worker forces the CPU backend (2 virtual local devices, so the
-local-mesh ICI transform path is exercised inside every process) and
-joins the group at a parent-chosen coordinator port. This is the
-driver-facing validation of SURVEY §2.3 P8's DCN half; on a real pod the
-same code runs with one process per host and the TPU backend.
+Without --gpus each worker runs on the CPU backend with 2 virtual local
+devices, so the local-mesh transform path is exercised inside every
+process. With --gpus worker i sees only GPU i (CUDA_VISIBLE_DEVICES), so
+each card has exactly one process. Workers join the group at a
+parent-chosen coordinator port on localhost.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,17 +56,17 @@ def make_image_giga(h, w, seed=3):
     return out
 
 
-def build_params(cfg):
+def build_params(cfg, tile=512):
     import grok_tpu as gk
 
     if cfg == "lossless53":
-        return gk.CompressParams(num_resolutions=5, tile_size=(512, 512),
+        return gk.CompressParams(num_resolutions=5, tile_size=(tile, tile),
                                  write_tlm=True)
     if cfg == "ht":
-        return gk.CompressParams(num_resolutions=5, tile_size=(512, 512),
+        return gk.CompressParams(num_resolutions=5, tile_size=(tile, tile),
                                  write_tlm=True, ht=True)
     if cfg == "lossy97":
-        return gk.CompressParams(num_resolutions=5, tile_size=(512, 512),
+        return gk.CompressParams(num_resolutions=5, tile_size=(tile, tile),
                                  irreversible=True, rates=[1.0])
     if cfg == "giga":
         # BASELINE config 4 shape: 1024x1024 tiles, gigapixel canvas
@@ -79,15 +80,13 @@ def build_array(cfg, h, w):
 
 
 def worker(args):
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    os.environ["JAX_PLATFORM_NAME"] = "cpu"
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_force_host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + " --xla_force_host_platform_device_count=2").strip()
+    if not args.gpus:
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                flags + " --xla_force_host_platform_device_count=2").strip()
     import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
     import numpy as np
 
@@ -96,7 +95,7 @@ def worker(args):
 
     multihost.initialize(f"127.0.0.1:{args.port}", args.nproc, args.pid)
     im = gk.Image.from_array(build_array(args.cfg, args.h, args.w))
-    params = build_params(args.cfg)
+    params = build_params(args.cfg, args.tile)
     t0 = time.perf_counter()
     if args.plane == "shared":
         total = multihost.compress_multihost_shared(
@@ -125,7 +124,7 @@ def worker(args):
             with open(args.stream_out, "rb") as f:
                 data = f.read()  # the shared file IS the exchange medium
         else:
-            data = gk.compress(im, build_params(args.cfg))
+            data = gk.compress(im, build_params(args.cfg, args.tile))
         t0 = time.perf_counter()
         img = multihost.decompress_multihost(data)
         dec_s = time.perf_counter() - t0
@@ -149,21 +148,29 @@ def free_port():
     return p
 
 
-def run_group(nproc, cfg, h, w, decode, plane="kv", timeout=1800):
+def run_group(nproc, cfg, h, w, decode, plane="kv", timeout=1800, tile=512,
+              gpus=False):
+    """Run one group of ``nproc`` workers; returns (process 0's stream,
+    its JSON fields). ``gpus``: worker i is bound to GPU i."""
     port = free_port()
-    stream_out = f"/tmp/gkmh_{os.getpid()}_{nproc}_{cfg}_{plane}.j2k"
+    fd, stream_out = tempfile.mkstemp(suffix=".j2k", prefix="gkmh_")
+    os.close(fd)
     procs = []
     for pid in range(nproc):
         cmd = [sys.executable, os.path.abspath(__file__), "--worker",
                "--pid", str(pid), "--nproc", str(nproc),
                "--port", str(port), "--cfg", cfg, "--h", str(h),
                "--w", str(w), "--stream-out", stream_out,
-               "--plane", plane]
+               "--plane", plane, "--tile", str(tile)]
+        env = None
         if decode:
             cmd.append("--decode")
+        if gpus:
+            cmd.append("--gpus")
+            env = {**os.environ, "CUDA_VISIBLE_DEVICES": str(pid)}
         procs.append(subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+            text=True, env=env))
     outs = []
     deadline = time.time() + timeout
     for p in procs:
@@ -197,44 +204,46 @@ def main():
     ap.add_argument("--cfg", default="lossless53")
     ap.add_argument("--h", type=int, default=1024)
     ap.add_argument("--w", type=int, default=1024)
-    ap.add_argument("--stream-out", default="/tmp/gkmh.j2k")
+    ap.add_argument("--stream-out")
     ap.add_argument("--decode", action="store_true", default=False)
     ap.add_argument("--plane", default="kv", choices=["kv", "shared"])
     ap.add_argument("--skip-giga", action="store_true")
     ap.add_argument("--giga-size", type=int, default=32768)
-    ap.add_argument("--out", default=os.path.join(ROOT, "MULTIHOST_r05.json"))
+    ap.add_argument("--tile", type=int, default=512)
+    ap.add_argument("--gpus", action="store_true",
+                    help="bind worker i to GPU i (one process per card)")
+    ap.add_argument("--out", help="also write the results JSON here")
     args = ap.parse_args()
 
     if args.worker:
         args.nproc = args.nproc[0] if isinstance(args.nproc, list) else args.nproc
         return worker(args)
 
-    os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+    # the parent computes the host references only: it stays off the
+    # accelerator so each card keeps one process
+    os.environ["JAX_PLATFORMS"] = "cpu"
     import grok_tpu as gk
 
     sizes = args.nproc or [1, 2, 4]
     results = {"metric": "multihost_encode", "image": f"{args.w}x{args.h}x3",
-               "note": ("N local CPU processes via jax.distributed; "
-                        "byte-identity vs single-host gk.compress asserted "
-                        "per row. Wall times share this host's 4 cores, so "
-                        "they validate the machinery, not DCN scaling. "
-                        "plane=shared exchanges only length records over "
-                        "the coordinator; tile bytes are pwritten into "
-                        "the shared output file at derived offsets."),
+               "note": ("N local processes via jax.distributed; "
+                        "byte-identity vs single-process gk.compress "
+                        "asserted per row. plane=shared exchanges only "
+                        "length records over the coordinator; tile bytes "
+                        "are pwritten into the shared output file at "
+                        "derived offsets."),
                "configs": {}}
     for cfg in ("lossless53", "ht"):
         im = gk.Image.from_array(make_image(args.h, args.w))
-        ref = gk.compress(im, build_params(cfg))
+        ref = gk.compress(im, build_params(cfg, args.tile))
         rows = []
         for n in sizes:
             for plane in (("kv", "shared") if n > 1 else ("kv",)):
                 t0 = time.perf_counter()
                 stream, info = run_group(n, cfg, args.h, args.w,
                                          decode=(n == max(sizes)),
-                                         plane=plane)
+                                         plane=plane, tile=args.tile,
+                                         gpus=args.gpus)
                 wall = time.perf_counter() - t0
                 ok = stream == ref
                 row = {"nproc": n, "plane": plane,
@@ -263,7 +272,8 @@ def main():
         for n in [p for p in sizes if p > 1][:2] or [2]:
             t0 = time.perf_counter()
             stream, info = run_group(n, "giga", gh, gw, decode=False,
-                                     plane="shared", timeout=3600)
+                                     plane="shared", timeout=3600,
+                                     gpus=args.gpus)
             wall = time.perf_counter() - t0
             ok = stream == ref
             row = {"nproc": n, "plane": "shared",
@@ -279,10 +289,11 @@ def main():
                 raise SystemExit(f"BYTE MISMATCH giga nproc={n}")
         results["configs"]["gigapixel_1024tiles"] = rows
 
-    with open(args.out, "w") as f:
-        json.dump(results, f, indent=2)
-        f.write("\n")
-    print(f"wrote {args.out}")
+    print(json.dumps(results))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=2)
+            f.write("\n")
 
 
 if __name__ == "__main__":
